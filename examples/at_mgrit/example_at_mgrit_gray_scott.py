@@ -69,12 +69,12 @@ def main():
     run_ts()
     run_parareal()
     n = len(jax.devices())
-    # Space x time mesh on TPU; the CPU backend's FFT thunk rejects the
-    # non-major layouts GSPMD picks for the space-sharded spectral solve
+    # Space x time mesh on accelerators; the CPU backend's FFT thunk rejects
+    # the non-major layouts GSPMD picks for the space-sharded spectral solve
     # (xla fft_thunk layout RET_CHECK), so virtual-device runs use a pure
     # time mesh.
-    on_tpu = jax.devices()[0].platform != 'cpu'
-    if n > 1 and on_tpu:
+    space_shardable_fft = jax.devices()[0].platform != 'cpu'
+    if n > 1 and space_shardable_fft:
         mesh = make_time_space_mesh(n_time=max(n // 2, 1), n_space=2)
     elif n > 1:
         mesh = make_time_space_mesh(n_time=n, n_space=1)

@@ -1,5 +1,5 @@
 """Black-box stepper coupling: an external (host/CPU) solver driven by the
-TPU-resident MGRIT solver via jax.pure_callback - the TPU-native analogue
+device-resident MGRIT solver via jax.pure_callback - the analogue
 of the reference's PETSc/Firedrake/GetDP couplings (reference
 src/pymgrit/petsc/heat_2D_petsc.py, induction_machine/induction_machine.py)."""
 

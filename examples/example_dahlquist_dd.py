@@ -1,9 +1,8 @@
 """README Dahlquist config in double-double precision (docs/precision.md).
 
 The reference's headline run (reference README.rst:88-109) needs fp64:
-5 MGRIT iterations to 3.975e-12 at tol=1e-10.  TPUs have no fp64 — this
-example reproduces that history from float32 pairs (ops/dd.py), identically
-on the CPU backend and on a real TPU chip.
+5 MGRIT iterations to 3.975e-12 at tol=1e-10.  This example reproduces that
+history from float32 pairs (ops/dd.py), without fp64 arithmetic.
 """
 
 import numpy as np

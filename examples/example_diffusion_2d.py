@@ -5,8 +5,8 @@ example_diffusion_2d_firedrake.py — PeriodicSquareMesh(20, 20, 10),
 kappa=0.1, Gaussian blob initial condition, two-level V-cycles with
 FCF-relaxation.
 
-TPU-native: the Firedrake DG solve becomes a generalized-eigenbasis step
-(two dense MXU matmuls; models/diffusion_2d.py) — no external FEM stack,
+Here the Firedrake DG solve becomes a generalized-eigenbasis step
+(two dense matmuls; models/diffusion_2d.py) — no external FEM stack,
 fully jit/vmap-compatible, space-shardable over the DOF axis.
 """
 

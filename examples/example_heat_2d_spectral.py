@@ -1,4 +1,4 @@
-"""Spectral-state + double-double: the TPU-first execution modes of Heat2D.
+"""Spectral-state + double-double: the accelerator execution modes of Heat2D.
 
 Runs the same 3-level heat_2d problem three ways and checks they walk the
 same residual history:
@@ -6,7 +6,6 @@ same residual history:
   physical basis, fp64/f32  — the reference-equivalent execution
   basis='spectral'          — state in eigen-coefficient space: elementwise
                               steps, closed-form interval relaxation
-                              (3.7x at TOMS scale, docs/performance.md)
   spectral + precision='dd' — float32-pair arithmetic: the reference's
                               1e-10 tolerance class on hardware without
                               fp64 (docs/precision.md)

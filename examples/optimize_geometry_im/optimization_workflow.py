@@ -7,7 +7,7 @@ machine with gmsh, rebuilds the GetDP pre-file, runs an AT-MGRIT simulation,
 and scores the design by an efficiency-like objective built from the mean
 torque and joule losses over the final part of the time interval.
 
-TPU-native differences:
+Differences from the reference:
 
 * The reference splits MPI_COMM_WORLD into a master (optimizer) and a worker
   group (MGRIT ranks) and moves objectives around with bcast.  Here the

@@ -4,7 +4,7 @@ Mirrors the reference's ``Application`` ABC (reference:
 src/pymgrit/core/application.py:32-107): a problem owns a time grid, an
 initial state, a template state, and a time integrator ``step``.
 
-TPU-first differences:
+Differences from the reference:
   * ``vector_template`` / ``vector_t_start`` are pytrees of jnp arrays, not
     Vector subclasses.
   * ``step(u, t_start, t_stop) -> u`` must be a *pure jittable* function of

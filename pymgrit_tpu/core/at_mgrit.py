@@ -7,7 +7,7 @@ point integrates only its own truncated local window of length k.
 
 The reference realizes this with an allgather on a "black" communicator plus
 a bcast on a "green" communicator and per-rank sequential re-integration
-(at_mgrit.py:45-76).  On TPU the whole construction collapses into one
+(at_mgrit.py:45-76).  Here the whole construction collapses into one
 batched kernel: a ``vmap`` over all coarsest points of a masked
 ``lax.scan`` of length k-1 — every local window integrates simultaneously.
 In the sharded setting the window states arrive via an ``all_gather`` along

@@ -4,7 +4,7 @@ Recomputes, as pure numpy setup-time arithmetic, what the reference derives in
 ``Mgrit.setup_points_and_comm_info`` (reference: src/pymgrit/core/mgrit.py:742-827):
 C-/F-point classification by membership of the coarser grid's time values in
 the finer grid (mgrit.py:767-771) and the grouping of F-points into
-consecutive runs (mgrit.py:774-776).  On TPU the runs are not a message
+consecutive runs (mgrit.py:774-776).  Here the runs are not a message
 schedule but the *batch axis*: all F-runs relax simultaneously
 (vmap over runs x lax.scan within a run).
 

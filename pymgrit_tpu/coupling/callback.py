@@ -1,5 +1,5 @@
 """Black-box stepper escape hatch: drive arbitrary host code from the
-TPU-resident MGRIT solver.
+device-resident MGRIT solver.
 
 The reference couples to external solver stacks by wrapping their data in
 Vector subclasses and calling into them from ``step`` — PETSc KSP solves
@@ -8,7 +8,7 @@ solves (firedrake/burgers_firedrake.py:36-75), and a GetDP FEM *binary* via
 ``subprocess.run`` with tempdir resolution files
 (induction_machine/induction_machine.py:96-195).
 
-The TPU-native equivalent is one mechanism: ``jax.pure_callback``.  The
+The equivalent here is one mechanism: ``jax.pure_callback``.  The
 solver's batched relaxation sweeps stay jitted on device; at a callback
 site the (batched) states are shipped to the host, an arbitrary Python
 ``step`` runs per batch element (scipy, PETSc, a subprocess — anything),

@@ -4,7 +4,7 @@ Parity target: reference src/pymgrit/advection/advection_1d.py:70-143 —
 periodic upwind matrix (101-120), BE step via sparse solve (129-143), IC
 ``exp(-x^2)`` (122-127).
 
-TPU-native stepper: the matrix (I + dt*A) is *circulant* (first column
+Stepper: the matrix (I + dt*A) is *circulant* (first column
 [1 + dt*c/dx, -dt*c/dx, 0, ...]) and diagonalizes in the Fourier basis, so
 the implicit solve is one FFT, an elementwise divide, and an inverse FFT —
 no sparse LU, fully batched under vmap.

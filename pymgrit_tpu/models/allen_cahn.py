@@ -6,12 +6,12 @@ periodic 5-point Laplacian via kron (172-189), three steppers: IMEX
 (211-214); tanh circle initial condition (231-244); radius diagnostics
 (246-260).
 
-TPU-native steppers: the periodic Laplacian diagonalizes in the Fourier
+Steppers: the periodic Laplacian diagonalizes in the Fourier
 basis, so the IMEX solve is FFT / elementwise / iFFT.  The Newton methods
 solve the Jacobian system (I - fac*(L + (1/eps^2) diag(1-(nu+1)u^nu)))
 with preconditioned CG — the preconditioner is the exact FFT inverse of the
 constant-coefficient part, so CG converges in a handful of iterations; the
-Laplacian matvec is a 5-point stencil of jnp.roll (VPU-friendly, no sparse
+Laplacian matvec is a 5-point stencil of jnp.roll (elementwise, no sparse
 structures).
 """
 
@@ -54,17 +54,16 @@ class AllenCahn(Application):
         k = np.arange(nx)
         lam1d = (2.0 * np.cos(2.0 * np.pi * k / nx) - 2.0) / self.dx ** 2
         self.lap_eigs = lam1d[:, None] + lam1d[None, :]  # (nx, nx)
-        # DFT as dense matmuls instead of jnp.fft: at model sizes (nx<=512)
-        # the MXU executes batched DFT matmuls faster than FFT butterflies,
-        # they fuse with the surrounding elementwise work, and they are
-        # GSPMD-partitionable (XLA CPU's fft thunk also RET_CHECKs on the
-        # transposed layouts the partitioner feeds it when the state is
-        # sharded over 'space').
+        # DFT as dense complex matmuls instead of jnp.fft: the same linear
+        # map, GSPMD-partitionable over 'space' (XLA CPU's fft thunk
+        # RET_CHECKs on the transposed layouts the partitioner feeds it when
+        # the state is sharded).  Whether matmuls or an FFT are faster on a
+        # given device is a measurement question.
         self._F = np.exp(-2j * np.pi * np.outer(k, k) / nx)
         self._Finv = np.conj(self._F) / nx
 
-        # State axis 0 may be sharded over the mesh 'space' axis (the FFT and
-        # roll collectives ride ICI under GSPMD).
+        # State axis 0 may be sharded over the mesh 'space' axis (GSPMD
+        # inserts the DFT and roll collectives).
         self.space_sharding_axis = 0
 
         self.vector_template = np.zeros((nx, nx))
@@ -81,7 +80,7 @@ class AllenCahn(Application):
 
     def _fft_solve(self, shift, b):
         """Exact solve of (I - shift*L) x = b via Fourier diagonalization
-        (dense DFT matmuls on the MXU; see constructor note)."""
+        (dense DFT matmuls; see constructor note)."""
         bh = self._F @ (b + 0j) @ self._F.T
         xh = bh / (1.0 - shift * self.lap_eigs)
         return jnp.real(self._Finv @ xh @ self._Finv.T)

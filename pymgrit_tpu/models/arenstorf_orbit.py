@@ -5,7 +5,7 @@ Parity target: reference src/pymgrit/arenstorf_orbit/arenstorf_orbit.py:
 (0.994, 0, 0, -2.00158510637908); the stepper is an *adaptive* RK45 per
 MGRIT interval (scipy solve_ivp with default rtol=1e-3, atol=1e-6).
 
-TPU-native stepper: a pure-JAX Dormand-Prince 5(4) integrator with scipy's
+Stepper: a pure-JAX Dormand-Prince 5(4) integrator with scipy's
 controller semantics (ops/runge_kutta.py) — jittable and vmapped over all
 C-intervals simultaneously, with lane-masked adaptive stepping.
 """

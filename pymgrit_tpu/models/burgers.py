@@ -4,9 +4,9 @@ Parity target: reference src/pymgrit/firedrake/burgers_firedrake.py:20-133 —
 1D: u_t + u u_x = nu u_xx with IC sin(2 pi x) (P2 FEM + Newton LU there);
 2D: velocity field u_t + (u . grad)u = nu Lap(u) with IC (sin(pi x), 0).
 
-TPU-native: periodic finite differences; the BE update solves the
+Periodic finite differences; the BE update solves the
 nonlinear system with Newton.  1D assembles the (small) dense Jacobian and
-solves directly (one batched dense solve on the MXU); 2D uses Newton +
+solves directly (one batched dense solve); 2D uses Newton +
 FFT-preconditioned BiCGStab with stencil matvecs.
 """
 

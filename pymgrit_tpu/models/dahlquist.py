@@ -3,7 +3,7 @@
 Parity target: reference src/pymgrit/dahlquist/dahlquist.py:60-111 (BE/FE/TR
 implicit-midpoint steppers, lambda configurable, IC u(0) = 1).  The state is
 a 0-d jnp array; all four integrators are closed-form scalar updates, so the
-batched relaxation sweeps reduce to pure VPU elementwise math.
+batched relaxation sweeps reduce to pure elementwise math.
 """
 
 from __future__ import annotations
@@ -19,8 +19,8 @@ class Dahlquist(Application):
 
     ``precision='dd'`` switches the state to double-double float32 pairs
     (ops/dd.py): the step body is unchanged — the DD operator overloads give
-    it fp64-class accuracy on TPU hardware without fp64, reproducing the
-    reference's 1e-10-tolerance golden history on chip."""
+    it fp64-class accuracy from float32 arithmetic, reproducing the
+    reference's 1e-10-tolerance golden history."""
 
     def __init__(self, constant_lambda: float = -1, method: str = 'BE',
                  precision: str = None, *args, **kwargs):

@@ -6,14 +6,14 @@ diffusion, backward-Euler step; examples/firedrake/
 example_diffusion_2d_firedrake.py: PeriodicSquareMesh(20, 20, 10),
 kappa=0.1, mu=5, Gaussian blob initial condition at the domain centre).
 
-TPU-native design: instead of coupling to an external FEM stack, the SIPG
+Design: instead of coupling to an external FEM stack, the SIPG
 operator is assembled once on the host (numpy, f64) on a structured
 periodic triangulation, then generalized-eigendecomposed against the DG
 mass matrix:  A V = M V diag(lam),  V^T M V = I.  The backward-Euler step
 
     (M + dt A) u = M u_prev   =>   u = V ( (V^T M u_prev) / (1 + dt*lam) )
 
-becomes two dense matmuls on the MXU — the same execution pattern as the
+becomes two dense matmuls — the same execution pattern as the
 spectral heat steppers, exact to roundoff, vmappable over all C-points,
 and valid for any traced dt (every MGRIT level reuses one eigenbasis).
 

@@ -7,7 +7,7 @@ species (u, v) on a periodic L x L grid with
 and three steppers: IMEX (diffusion implicit / reaction explicit, KSP-CG in
 the reference), IMPL (backward Euler + SNES Newton), EXPL (forward Euler).
 
-TPU-native: state is a (2, nx, ny) array; the periodic diffusion operator
+Layout: state is a (2, nx, ny) array; the periodic diffusion operator
 diagonalizes in Fourier space, so the IMEX solve is an FFT scale iFFT and
 the Newton solve uses FFT-preconditioned CG per species block (the
 reaction Jacobian is a pointwise 2x2 block handled in the matvec).  The

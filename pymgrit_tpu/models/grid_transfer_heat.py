@@ -13,7 +13,7 @@ Parity targets:
     vertex-centered grids (fine n -> coarse (n+1)/2, boundary included).
 
 The reference delegates to PETSc mat-vecs / Python loops; here both
-operators are vectorized slice arithmetic (pure VPU ops, vmapped over the
+operators are vectorized slice arithmetic (pure elementwise ops, vmapped over the
 time axis by the solver).
 """
 

@@ -4,8 +4,8 @@ Parity target: reference src/pymgrit/heat/heat_1d.py:131-217 — interior-point
 grid (heat_1d.py:152-157), 3-point Laplacian, backward-Euler step
 ``u_i = (I + dt L)^-1 (u_{i-1} + dt b(x, t_i))`` (heat_1d.py:198-217).
 
-TPU-native stepper: the sparse LU of the reference becomes a sine-eigenbasis
-solve (two dense (nx,nx) matmuls on the MXU), exact to roundoff and batched
+Stepper: the sparse LU of the reference becomes a sine-eigenbasis
+solve (two dense (nx,nx) matmuls), exact to roundoff and batched
 over all C-intervals by vmap.
 """
 
@@ -52,8 +52,8 @@ class Heat1D(Application):
 
         # precision='dd': state and spectral constants become double-double
         # float32 pairs (ops/dd.py); the eigenbasis matmuls dispatch to the
-        # Ozaki MXU kernel (ops/ozaki.py), reaching fp64-class residual
-        # floors on hardware without fp64.  The step body is unchanged.
+        # Ozaki-scheme matmul (ops/ozaki.py), reaching fp64-class residual
+        # floors from float32 arithmetic.  The step body is unchanged.
         self._dd = precision == 'dd'
         self._S_np = self.S                    # numpy copy (f64)
         self.vector_template = np.zeros(self.nx)
@@ -236,7 +236,7 @@ class Heat1D(Application):
         """Batched BE step over a (B, nx) tube as two flat (B, nx)@(nx, nx)
         GEMMs (S is symmetric, so S @ b == b @ S) — the solver's relaxation
         sweeps use this instead of vmapped per-sample solves (see
-        Heat2D.step_batched for the measured rationale)."""
+        Heat2D._lx for the rationale)."""
         if self._spectral or self._dd:
             return jax.vmap(self.step, in_axes=(0, 0, 0))(u_tube, t_starts,
                                                           t_stops)

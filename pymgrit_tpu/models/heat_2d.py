@@ -6,8 +6,8 @@ are zeroed (heat_2d.py:250-287), theta-method with theta in {0, 1/2, 1}
 (heat_2d.py:194-202), constant-or-callable Dirichlet data per edge
 (heat_2d.py:204-231), rhs assembly (compute_rhs, heat_2d.py:289-320).
 
-TPU-native stepper: the implicit solve on the interior block is a two-sided
-sine-eigenbasis solve — four dense matmuls (MXU) instead of a sparse LU —
+Stepper: the implicit solve on the interior block is a two-sided
+sine-eigenbasis solve — four dense matmuls instead of a sparse LU —
 with a boundary lift for the Dirichlet coupling.  Batched over C-points via
 vmap, this is the framework's flagship benchmark problem (BASELINE.json:
 heat_2d nt=4097).
@@ -41,7 +41,7 @@ class Heat2D(Application):
         super().__init__(*args, **kwargs)
         # basis='spectral': the state IS the sine-eigenbasis coefficient
         # array of the interior — every step becomes a handful of
-        # *elementwise* VPU ops (no matmuls in the hot loop at all); see
+        # *elementwise* ops (no matmuls in the hot loop at all); see
         # the derivation at _step_spectral.  Residual histories are
         # identical to the physical basis because the basis is orthonormal
         # and all of MGRIT's algebra is orthogonally invariant.
@@ -53,13 +53,9 @@ class Heat2D(Application):
             # boundary ring (heat_2d.py:333-343) — there is no boundary ring
             # in coefficient space to carry it on
             raise Exception("basis='spectral' supports BE/CN (theta > 0) only")
-        # precision='dd': double-double float32 state + Ozaki MXU spectral
-        # solves (ops/dd.py, ops/ozaki.py) — fp64-class residual floors on
-        # hardware without fp64.
-        # (A fused Pallas variant of the batched spectral solve was built,
-        # A/B'd on chip at n in {63,127,255} x batch in {64,512}, and
-        # removed: it only beat XLA at small batches, never in the large-
-        # batch relaxation sweeps MGRIT actually runs — docs/performance.md.)
+        # precision='dd': double-double float32 state + Ozaki-scheme spectral
+        # solves (ops/dd.py, ops/ozaki.py) — fp64-class residual floors
+        # from float32 arithmetic.
         self._dd = precision == 'dd'
         self.x = np.linspace(x_start, x_end, nx)
         self.y = np.linspace(y_start, y_end, ny)
@@ -355,10 +351,10 @@ class Heat2D(Application):
         denom = 1.0 + shift * (self.lamx[:, None] + self.lamy[None, :])
         return self.Sx @ (bh / denom) @ self.Sy
 
-    # -- flat batched transforms (round-3 perf): a vmap of (n,n)@(n,n)
-    # matmuls lowers to B small batched GEMMs (each padded to the 128 MXU
-    # tile, ~60us apiece on chip); tensordot reshapes the batch into ONE
-    # (n, B*n) GEMM.  Measured on the TOMS config: c_relax 34ms -> flat. --
+    # -- flat batched transforms: a vmap of (n,n)@(n,n) matmuls lowers to
+    # B small batched GEMMs; tensordot reshapes the batch into ONE
+    # (n, B*n) GEMM with the same values.  Whether the flat form still pays
+    # on a given device is a measurement question. --
 
     def _lx(self, S, b):
         """S @ b over axis -2 of a (..., n, m) batch, as one flat GEMM."""
@@ -418,7 +414,7 @@ class Heat2D(Application):
 
     def _step_spectral(self, u, t_start, t_stop):
         """Theta-method step entirely in eigen-coefficient space: a few
-        elementwise VPU ops, zero matmuls (see constructor derivation).
+        elementwise ops, zero matmuls (see constructor derivation).
         Operator-polymorphic: works for f32/f64 arrays and DD pairs."""
         dt = t_stop - t_start
         shift = dt * self.theta
@@ -499,7 +495,7 @@ class Heat2D(Application):
         sine basis): spectral applies the tables directly; physical
         transforms the J seeds (2 GEMMs), applies A^k x^ + G_k, and
         transforms all (m-1, J) results back in one batched GEMM pair —
-        the scan that kept the MXU ~1/3 busy becomes two large matmuls.
+        the sequential scan of small matmuls becomes two large matmuls.
         only_last=True returns just row m-1 (shape (1, J, ...)) — the lazy
         F-relaxation mode: during iterations only the last F-value of each
         interval is ever consumed, so the solver skips materializing the
@@ -595,8 +591,9 @@ class Heat2D(Application):
             out = jnp.zeros(y_int.shape[:2] + (self.nx, self.ny), y_int.dtype)
             return ring(out.at[:, :, 1:-1, 1:-1].set(y_int))
 
-        # chunk the (rows, J, nxi, nyi) workspace to ~512 MB f32 so the TOMS
-        # 257^2 scale fits HBM (the full fine tube alone is ~4.3 GB there)
+        # chunk the (rows, J, nxi, nyi) workspace to 2^27 elements so the
+        # TOMS 257^2 scale fits device memory (the full fine tube alone is
+        # ~4.3 GB in f32 there)
         J = seed.shape[0]
         elems = n_rows * J * (self.nx - 2) * (self.ny - 2)
         n_chunks = max(1, -(-elems // (128 * 1024 * 1024)))

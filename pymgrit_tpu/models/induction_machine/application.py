@@ -5,7 +5,7 @@ Parity target: reference src/pymgrit/induction_machine/induction_machine.py:
 (preprocessing + -restart solve) in a tempdir, and reads back the DOF vector
 plus the 8 scalar outputs from resolution/result files.
 
-TPU-native shape: the host-side GetDP round-trip is wrapped in
+Shape: the host-side GetDP round-trip is wrapped in
 ``jax.pure_callback`` (vmap_method='sequential'), so the machine problem
 plugs into the same jitted batched solver as every native model.  Requires
 the GetDP binary and the im_3kW model data; raises at construction when

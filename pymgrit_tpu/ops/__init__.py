@@ -1,1 +1,1 @@
-"""TPU-native numerical kernels used by the model zoo."""
+"""Numerical kernels used by the model zoo."""

@@ -3,18 +3,18 @@
 Why this exists: the reference PyMGRIT runs everything in fp64 and its
 headline result is 5 MGRIT iterations to a residual of 3.975e-12
 (reference: README.rst:105-109); every golden history assumes ~1e-10..1e-13
-accurate arithmetic.  TPUs have no native fp64 — plain f32 stalls the MGRIT
-residual at ~1e-5 — so this module represents each number as an *unevaluated
-sum of two float32s* ``hi + lo`` with ``|lo| <= ulp(hi)/2``, giving ~49 bits
-of significand (relative accuracy ~3.6e-15), enough to reproduce the
-reference's fp64 histories on the chip itself.
+accurate arithmetic.  Plain f32 stalls the MGRIT residual at ~1e-5, so for
+float32-only execution this module represents each number as an
+*unevaluated sum of two float32s* ``hi + lo`` with ``|lo| <= ulp(hi)/2``,
+giving ~49 bits of significand (relative accuracy ~3.6e-15), enough to
+reproduce the reference's fp64 histories without fp64 arithmetic.
 
 All algorithms are the classic error-free transforms (Dekker 1971, Knuth
 TAOCP v2, and the QD library of Hida/Li/Bailey): TwoSum, QuickTwoSum,
 Dekker split/TwoProd, and the accurate DD add/mul/div/sqrt built from them.
-They are branch-free elementwise float ops, so they run on the TPU VPU and
-are fully jit/vmap/scan-compatible.  Matrix products of DD operands are
-dispatched to the Ozaki-scheme MXU kernel (ops/ozaki.py).
+They are branch-free elementwise float ops, fully jit/vmap/scan-compatible.
+Matrix products of DD operands are dispatched to the Ozaki-scheme matmul
+(ops/ozaki.py).
 
 ``DD`` is a registered pytree node, so DD states flow through the solver's
 tube machinery (gather/scatter/where/scan) untouched; the *algebraic* ops in
@@ -22,8 +22,10 @@ tube machinery (gather/scatter/where/scan) untouched; the *algebraic* ops in
 renormalized.
 
 Design note: components are ALWAYS float32, even when jax_enable_x64 is on.
-f32 arithmetic is IEEE round-to-nearest on both the TPU VPU and CPU, so the
-CPU test suite exercises bit-identical semantics to the chip.
+The error-free transforms need IEEE round-to-nearest f32 without fused
+multiply-add contraction of the Dekker split; on the CPU and on an H100
+(checked by chip_smoke.py: two_prod exact on 2^20 random pairs) XLA keeps
+both, so the CPU tests exercise the device's semantics.
 """
 
 from __future__ import annotations

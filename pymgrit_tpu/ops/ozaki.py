@@ -1,13 +1,12 @@
-"""Ozaki-scheme matrix products for double-double operands on the MXU.
+"""Ozaki-scheme matrix products for double-double operands.
 
-Problem: the TPU MXU multiplies bf16 and accumulates f32 — a plain matmul
-carries ~2^-24 relative error, 24 orders of magnitude short of the fp64-class
-accuracy the MGRIT golden histories need (see ops/dd.py).  The Ozaki
-splitting scheme (Ozaki, Ogita, Oishi, Rump 2012) fixes this *using the MXU
-itself*: slice each operand into pieces whose significands are so short that
-every piece-pair product — including the f32 accumulation over the full
-contraction axis — is EXACT integer arithmetic, then recombine the exact
-partial products in double-double on the VPU.
+Problem: a float32 matmul carries ~2^-24 relative error, far short of the
+fp64-class accuracy the MGRIT golden histories need (see ops/dd.py).  The
+Ozaki splitting scheme (Ozaki, Ogita, Oishi, Rump 2012) fixes this with
+low-precision matmuls themselves: slice each operand into pieces whose
+significands are so short that every piece-pair product — including the f32
+accumulation over the full contraction axis — is EXACT integer arithmetic,
+then recombine the exact partial products in double-double elementwise.
 
 Recipe for C = A @ B with A, B double-double (hi+lo float32 pairs):
 
@@ -17,18 +16,21 @@ Recipe for C = A @ B with A, B double-double (hi+lo float32 pairs):
    each (error-free magic-number rounding).  Piece quotients are integers
    |q| <= 2^7, so a bf16 cast is exact, a bf16*bf16 product (<= 2^14) is
    exact, and an f32 accumulation of K <= 2^(24-2W) = 1024 such products is
-   exact: the MXU does pure integer arithmetic at full bf16 speed.
+   exact: the matmul unit does pure integer arithmetic at bf16 speed.
 3. The NP x NP piece-pair products run as ONE bf16 matmul of the
-   block-stacked pieces ((NP*m, K) @ (K, NP*n)) — small operands get padded
-   into a big MXU-friendly tile for free.
+   block-stacked pieces ((NP*m, K) @ (K, NP*n)) — one large matmul in place
+   of sixteen small ones.
 4. Slice remainders fold into the lo components; the two tail products
    (tail_A @ B and A @ tail_B, both ~2^-24 relative) run as plain f32
    matmuls with HIGHEST precision — their own rounding lands at ~2^-48.
-5. Partials are accumulated largest-first into a double-double on the VPU.
+5. Partials are accumulated largest-first into a double-double.
 
-Result: ~2^-48-accurate matmul at roughly the cost of NP^2=16 bf16 passes +
-2 f32 matmuls, i.e. ~4-6x a single f32(HIGHEST) matmul — on hardware with no
-fp64 at all.  Contractions longer than 1024 are chunked.
+Result: a ~2^-48-accurate matmul from NP^2=16 piece products (one stacked
+bf16 matmul) plus 2 f32 matmuls, with no fp64 arithmetic.  Contractions
+longer than 1024 are chunked.  The componentwise bound 2^-47 * (|A| |B|)
+holds when the entries of each row of A (column of B) lie within about 2^8
+of that row's (column's) largest; wider spreads inside one row fall back to
+the f32 tail products and only a normwise bound holds.
 """
 
 from __future__ import annotations
@@ -97,7 +99,7 @@ def _matmul_chunk(a: DD, b: DD) -> DD:
     ta = al + ra
     tb = bl + rb
 
-    # 3. all NP x NP piece pairs in ONE bf16 MXU matmul of stacked blocks
+    # 3. all NP x NP piece pairs in ONE bf16 matmul of stacked blocks
     astack = jnp.concatenate([p.astype(jnp.bfloat16) for p in pa], axis=-2)
     bstack = jnp.concatenate([p.astype(jnp.bfloat16) for p in pb], axis=-1)
     big = jnp.matmul(astack, bstack, preferred_element_type=jnp.float32)

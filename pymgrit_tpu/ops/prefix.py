@@ -3,7 +3,7 @@
 The reference solves its coarsest grid with a strictly sequential forward
 solve (reference src/pymgrit/core/mgrit.py:459-486) and offers AT-MGRIT as
 an *approximate* way to break that chain (reference src/pymgrit/core/
-at_mgrit.py).  On TPU there is an exact alternative for the steppers whose
+at_mgrit.py).  On an accelerator there is an exact alternative for the steppers whose
 update is affine and elementwise in the state's own representation,
 
     u_{k} = A_k * u_{k-1} + c_k        (elementwise per leaf),
@@ -16,10 +16,10 @@ compose associatively,
 
 so ``jax.lax.associative_scan`` computes ALL n states in O(log n) depth
 instead of n sequential scan iterations.  The work grows ~2x (the scan
-evaluates ~2n combines) but every combine is an elementwise VPU op over the
-whole tube — exactly what the hardware does at full bandwidth — while the
-sequential chain pays n device-loop latencies.  This is the exact,
-TPU-native counterpart of the chain-breaking that AT-MGRIT (truncated
+evaluates ~2n combines) but every combine is an elementwise op over the
+whole tube — bandwidth-bound, fully parallel work — while the
+sequential chain pays n device-loop latencies.  This is the exact
+counterpart of the chain-breaking that AT-MGRIT (truncated
 windows) only approximates.
 
 Numerics: the composed products round differently from the sequential

@@ -1,1 +1,1 @@
-"""Distribution over TPU device meshes (time x space)."""
+"""Distribution over device meshes (time x space)."""

@@ -12,7 +12,7 @@ shard-local except one neighbor exchange:
   C-point).
 * C-relaxation / FAS / residual need exactly one halo: the previous
   interval's last F-point, a shift-by-one realized as an intra-shard roll
-  plus a single ``ppermute`` of one state per shard — the TPU-native form
+  plus a single ``ppermute`` of one state per shard — the SPMD form
   of the reference's op_id 2/3/7 messages (reference mgrit.py:347-352,
   503-508, 398-403).
 * The coarse grid's blocks are a reshape of the fine C-points: restriction
@@ -33,7 +33,7 @@ commits real points.  This is the SPMD analogue of the reference's ranks
 that own zero points on coarse levels (tests/mpi/procs_without_points.py).
 
 Remaining constraint: uniform coarsening per level (rectangular (J, m)
-blocks are what batches onto the MXU; the reference's non-uniform
+blocks are what batches into large matmuls; the reference's non-uniform
 ``varying_coarsening`` corner case runs on the general GSPMD ``Mgrit``).
 """
 
@@ -379,13 +379,16 @@ class ShardedMgrit:
 
         # shard: blocks leaves on axis 0 over 'time'; last/g_last replicated
         # over time.  With a 2D mesh, the state's space_sharding_axis is
-        # additionally sharded over 'space' (GSPMD-managed inside the body).
+        # additionally sharded over 'space' (GSPMD-managed inside the body)
+        # when the mesh axis divides it; otherwise it stays replicated, as in
+        # the GSPMD executor (sharding.leaf_spec).
         def _put_spec(x, is_blocks):
             lead = ("time", None) if is_blocks else ()
             state_nd = x.ndim - len(lead)
             sp = [None] * state_nd
             if (self.n_space > 1 and self.space_axis is not None
-                    and self.space_axis < state_nd):
+                    and self.space_axis < state_nd
+                    and x.shape[len(lead) + self.space_axis] % self.n_space == 0):
                 sp[self.space_axis] = "space"
             return P(*lead, *sp)
 

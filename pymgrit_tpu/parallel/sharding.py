@@ -2,7 +2,7 @@
 
 Replaces the reference's MPI machinery (reference: src/pymgrit/core/split.py
 splits COMM_WORLD into a space x time process grid; mgrit.py:693-713 moves
-halo states with tagged isend/recv) with the TPU-native model:
+halo states with tagged isend/recv) with the SPMD model:
 
 * A ``jax.sharding.Mesh`` with axes ('time', 'space') — the analogue of the
   reference's 2D process grid (split.py:10-30).

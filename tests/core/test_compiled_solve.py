@@ -2,8 +2,9 @@
 
 import numpy as np
 import jax.numpy as jnp
+import pytest
 
-from pymgrit_tpu import Mgrit, Dahlquist, Heat1D, simple_setup_problem
+from pymgrit_tpu import Mgrit, Dahlquist, Heat1D, Heat2D, simple_setup_problem
 
 
 def test_compiled_matches_host_loop():
@@ -15,6 +16,31 @@ def test_compiled_matches_host_loop():
     conv_dev = Mgrit(problem=build(), tol=1e-10, logging_lvl=30).solve_compiled()['conv']
     assert len(conv_host) == len(conv_dev)
     np.testing.assert_allclose(conv_dev, conv_host, rtol=1e-10)
+
+
+@pytest.mark.parametrize("model", ["dahlquist", "heat2d"])
+def test_lower_solve_compiled(model):
+    """lower_solve_compiled() lowers the fused program without running it
+    (Heat2D binds runtime params first, Dahlquist has none): it compiles,
+    and the solve after it walks the same history as a fresh solver's."""
+    def build():
+        if model == "dahlquist":
+            return simple_setup_problem(
+                problem=Dahlquist(t_start=0, t_stop=5, nt=101), level=2,
+                coarsening=2)
+        return simple_setup_problem(
+            problem=Heat2D(x_start=0, x_end=1, y_start=0, y_end=1, nx=9,
+                           ny=9, a=1.0, rhs=lambda x, y, t: 0 * x + t,
+                           t_start=0, t_stop=1, nt=65),
+            level=2, coarsening=4)
+
+    m = Mgrit(problem=build(), tol=1e-10, logging_lvl=30)
+    compiled = m.lower_solve_compiled().compile()
+    assert compiled.memory_analysis() is not None
+    conv = m.solve_compiled()['conv']
+    ref = Mgrit(problem=build(), tol=1e-10, logging_lvl=30).solve_compiled()['conv']
+    assert len(conv) == len(ref) > 1
+    np.testing.assert_allclose(conv, ref, rtol=1e-12)
 
 
 def test_compiled_jump_criterion():

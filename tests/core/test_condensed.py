@@ -296,8 +296,8 @@ def test_condensed_dd_spectral_active_and_matches():
     """The equal-accuracy bench row (dd_toms129) depends on this pairing:
     the closed-form interval hook supports DD in SPECTRAL state, so the
     condensed level-0 carry engages; DD-physical declines (named reason).
-    Round-5 measured consequence of losing it: the full 16385-row DD tube
-    at the TOMS scale crashes the TPU worker."""
+    Losing it makes the full 16385-row DD tube the carried state at the
+    TOMS scale, with ~3x its size in transients."""
     def build(basis):
         t = np.linspace(0, 1, 129)
         out, s = [], 1

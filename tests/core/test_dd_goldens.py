@@ -2,10 +2,9 @@
 
 The whole point of ops/dd.py + ops/ozaki.py: residual histories that the
 reference only reaches in fp64 (reference README.rst:105-109 — 5 iterations
-to 3.975e-12 at tol=1e-10) must reproduce with float32-pair arithmetic,
-because that is all a TPU has.  These tests run the DD path on the CPU
-backend, which executes bit-identical f32 semantics to the chip (verified
-live on TPU v5: conv tail 3.9753e-12, ratios to golden within 1e-4).
+to 3.975e-12 at tol=1e-10) must reproduce with float32-pair arithmetic
+alone.  These tests run the DD path on the CPU backend; chip_smoke.py runs
+the README golden on the GPU.
 """
 
 import logging

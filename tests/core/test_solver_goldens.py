@@ -1,7 +1,7 @@
 """Golden residual-history parity tests against the reference's published
 numbers (BASELINE.md; reference tests/mpi/results/* and tests/core/test_mgrit.py).
 
-The key invariant: our TPU-native solver must reproduce the reference's
+The key invariant: our solver must reproduce the reference's
 residual histories to ~4 decimals (the same tolerance the reference CI
 enforces across rank counts, reference tests/mpi/mpi.py:49).
 """

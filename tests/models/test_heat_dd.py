@@ -1,7 +1,7 @@
 """DD (double-double float32) precision mode for the heat models.
 
-The spectral steppers dispatch their eigenbasis matmuls to the Ozaki MXU
-kernel when precision='dd'; these tests pin (a) step-level parity against
+The spectral steppers dispatch their eigenbasis matmuls to the Ozaki-scheme
+matmul when precision='dd'; these tests pin (a) step-level parity against
 real fp64, (b) the reference 3-level heat_1d golden history (reference
 tests/core/test_mgrit.py:59-70), and (c) full-history agreement between the
 DD and fp64 solvers on a multi-iteration heat_2d hierarchy down to the

@@ -1,7 +1,7 @@
 """Double-double arithmetic accuracy vs float64 ground truth.
 
 The DD layer (ops/dd.py, ops/ozaki.py) must deliver ~2^-48 relative accuracy
-from float32 pairs — that is what lets the TPU backend reproduce the
+from float32 pairs — that is what lets float32-only execution reproduce the
 reference's fp64 golden histories (reference README.rst:105-109 reaches
 3.975e-12).  Every check here compares against numpy float64 computed from
 the exact same inputs.
@@ -163,6 +163,24 @@ def test_matmul_wild_scales():
     got = matmul_dd(dd.from_f64(a), dd.from_f64(b))
     bound = DD_EPS * (np.abs(a) @ np.abs(b)) + 1e-30
     assert np.max(np.abs(got.to_float64() - a @ b) / bound) < 8.0
+
+
+@pytest.mark.gpu
+def test_matmul_exact_pieces_on_gpu_k1024():
+    """On the GPU the bf16 piece products must accumulate exactly in f32:
+    all-ones mantissas make every 7-bit piece 127, so K=1024 piece products
+    sum to just under 2^24, the edge of exact f32 accumulation.  The
+    reference product is taken in 64-bit-significand arithmetic."""
+    sign = np.where(RNG.standard_normal((256, 1024)) < 0, -1.0, 1.0)
+    a = sign * (2.0 - 2.0 ** -23) * (1.0 + 2.0 ** -26)
+    b = a.T.copy()
+    x, y = dd.from_f64(a), dd.from_f64(b)
+    got = jax.jit(matmul_dd)(x, y)
+    ax = np.asarray(x.hi, np.longdouble) + np.asarray(x.lo, np.longdouble)
+    bx = np.asarray(y.hi, np.longdouble) + np.asarray(y.lo, np.longdouble)
+    gx = np.asarray(got.hi, np.longdouble) + np.asarray(got.lo, np.longdouble)
+    bound = DD_EPS * (np.abs(ax) @ np.abs(bx))
+    assert np.max(np.abs(gx - ax @ bx) / bound) <= 1.0
 
 
 def test_matmul_vector_cases():

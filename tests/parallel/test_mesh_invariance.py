@@ -1,5 +1,5 @@
 """Mesh-shape invariance: the distributed solver must produce the same
-residual history on any ('time', 'space') mesh shape — the TPU analogue of
+residual history on any ('time', 'space') mesh shape — the SPMD analogue of
 the reference's rank-count invariance CI (reference tests/mpi/mpi.py:49:
 histories identical to 4 decimals for np=1..7)."""
 

@@ -2,11 +2,13 @@
 
 The reference's scaling study (docs/source/usage/parallelism.rst:86-142,
 2D heat 101x51x8193 over 2-128 time procs) maps here to mesh shapes over
-however many devices are visible.  On one host this runs against virtual
-CPU devices (set by --devices); on a pod slice it runs over the real chips.
+however many devices are visible: by default the accelerators JAX finds
+(an error if there are fewer than --devices), or with --virtual-cpu that
+many virtual CPU devices, whose times are CPU times.
 
 Usage:
-  JAX_PLATFORMS=cpu python tools/scaling.py --devices 8 --mode strong
+  python tools/scaling.py --devices 4 --mode strong
+  python tools/scaling.py --virtual-cpu --devices 8 --mode strong
 """
 
 import argparse
@@ -29,16 +31,23 @@ def main():
                     help="distance-k window for --executor at_shard_map")
     ap.add_argument("--out", default=None,
                     help="write the results JSON to this path")
+    ap.add_argument("--virtual-cpu", action="store_true",
+                    help="run on --devices virtual CPU devices (CPU times)")
     args = ap.parse_args()
 
-    flags = os.environ.get("XLA_FLAGS", "")
-    if "host_platform_device_count" not in flags:
-        os.environ["XLA_FLAGS"] = flags + f" --xla_force_host_platform_device_count={args.devices}"
+    if args.virtual_cpu:
+        os.environ["JAX_PLATFORMS"] = "cpu"
+        flags = os.environ.get("XLA_FLAGS", "")
+        if "host_platform_device_count" not in flags:
+            os.environ["XLA_FLAGS"] = flags + f" --xla_force_host_platform_device_count={args.devices}"
+        print("scaling: virtual CPU devices; the times below are CPU times")
 
     import numpy as np
     import jax
-    if os.environ.get("JAX_PLATFORMS") == "cpu" or len(jax.devices()) < args.devices:
-        jax.config.update("jax_platforms", "cpu")
+    if len(jax.devices()) < args.devices:
+        raise SystemExit(f"scaling: needs {args.devices} devices, JAX found "
+                         f"{len(jax.devices())} {jax.devices()[0].platform} "
+                         "device(s); pass --virtual-cpu for a CPU run")
 
     from pymgrit_tpu import Heat2D, Mgrit
     from pymgrit_tpu.parallel.shard_solver import ShardedAtMgrit, ShardedMgrit
@@ -91,8 +100,9 @@ def main():
                "devices": args.devices,
                "platform": jax.devices()[0].platform,
                "note": ("virtual CPU devices measure the collective-program "
-                        "SHAPE (comm/compute structure), not real-chip "
-                        "speedup; rerun on a pod slice for hardware numbers"),
+                        "SHAPE (comm/compute structure), not device "
+                        "speedup" if args.virtual_cpu else
+                        f"{jax.devices()[0].device_kind} devices"),
                "results": results}
     print(json.dumps(summary))
     if args.out:
